@@ -1,11 +1,11 @@
-"""faldoi_tpu — a TPU-native reimplementation of the FALDOI optical-flow framework.
+"""faldoi_tpu — a JAX reimplementation of the FALDOI optical-flow framework.
 
 FALDOI (Palomares et al., JMIV 2017; IPOL 2019, doi 10.5201/ipol.2019.238)
 estimates dense optical flow in five stages: sparse matching, seed
 rasterisation, energy-guided local densification, and a global variational
 refinement.  The upstream reference (fperezgamonal/faldoi-ipol) is a pipeline
 of C/C++ executables driven by Python scripts; this package re-designs every
-stage TPU-first:
+stage as accelerator array programs:
 
 * all numerical kernels are dense JAX/XLA array programs (``faldoi_tpu.ops``),
 * the per-patch primal-dual solvers are batched with ``vmap`` and fused by XLA

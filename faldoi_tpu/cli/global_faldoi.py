@@ -31,6 +31,9 @@ def pick_option(args, name, default):
 
 
 def main(argv=None):
+    from faldoi_tpu.profiling import enable_compile_cache
+
+    enable_compile_cache()
     args = list(sys.argv[1:] if argv is None else argv)
     warps = int(pick_option(args, "w", str(P.PAR_DEFAULT_NWARPS_GLOBAL)))
     method = int(pick_option(args, "m", str(P.M_TVL1)))

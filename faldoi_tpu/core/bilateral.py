@@ -9,7 +9,7 @@ non-trusted, non-fixed pixels, seeding non-trusted flow with 0
 (local_faldoi.cpp:380-482).  The call site is disabled in the reference's
 hot path (local_faldoi.cpp:701-702), so this is a capability, not a default.
 
-TPU-native formulation: no per-pixel weight tables — the 5x5 neighborhood
+Dense formulation: no per-pixel weight tables — the 5x5 neighborhood
 becomes 25 static shifts of the image plane, weights computed on the fly
 (they are one multiply+exp per shift, cheaper than materialising a
 (h, w, 25) table in HBM), iterated as dense Jacobi updates.

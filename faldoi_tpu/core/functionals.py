@@ -38,42 +38,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from faldoi_tpu.ops.bicubic import (
-    bicubic_interp_at, bicubic_window_sample, bicubic_window_sample_blocks,
-)
-from faldoi_tpu.ops.blockgather import (
-    make_col_blocks, make_crop_blocks, crop_plane_blocks, crop_chans_blocks,
-)
+from faldoi_tpu.ops.bicubic import bicubic_interp_at
+from faldoi_tpu.core.patch_solver import crop_padded
 from faldoi_tpu.ops.stencils import divergence_patch, forward_gradient_patch
 from faldoi_tpu.ops.nonlocal_ops import neighbor_offsets
 from faldoi_tpu.core.pd_common import tvl2_getD, tvl2_getP
 from faldoi_tpu.params import DT_R, GRAD_IS_ZERO, NL_BETA
 from faldoi_tpu import params as P
-
-# Window size for the MXU patch warp: the 11x11 patch plus the intra-patch
-# flow spread must fit in a WARP_WIN-4 square (see bicubic_window_sample).
-# 32 tolerates ~17px of flow discontinuity inside one patch.
-WARP_WIN = int(os.environ.get("FALDOI_WARP_WIN", "32"))
-
-# Column-block geometry for the block-gather warp window (see
-# ops.blockgather): any one patch's samples must fit a single
-# WARP_BWIDTH-wide block, i.e. spread <= WARP_BWIDTH - WARP_BSTRIDE - 3
-# (= 29 px at the defaults — the same coherence budget as WARP_WIN=32).
-WARP_BSTRIDE = int(os.environ.get("FALDOI_WARP_BSTRIDE", "32"))
-WARP_BWIDTH = int(os.environ.get("FALDOI_WARP_BWIDTH", "64"))
-
-
-def make_warp_blocks(planes_chw: jnp.ndarray) -> jnp.ndarray:
-    """(C, H, W) -> (C, H, NB, WARP_BWIDTH) column blocks for the warp."""
-    return make_col_blocks(planes_chw, WARP_BSTRIDE, WARP_BWIDTH)
-
-
-def _blockgather_on(which: str) -> bool:
-    """Granular kill-switch for the block-gather fast paths (debug/ablation):
-    FALDOI_BLOCKGATHER=1 (default, all on) | 0 (all off) | solver | sweep."""
-    v = os.environ.get("FALDOI_BLOCKGATHER", "1")
-    return v == "1" or v == which
-
 
 class SolverConsts(NamedTuple):
     """Per-growing constants shared by the canvas solvers."""
@@ -82,8 +53,8 @@ class SolverConsts(NamedTuple):
     i1: jnp.ndarray              # full target frame
     i1x: jnp.ndarray
     i1y: jnp.ndarray
-    i1_stack: jnp.ndarray        # (3, h, w) stacked (i1, i1x, i1y) for the
-                                 # windowed MXU warp (see ops.bicubic)
+    i1_stack: jnp.ndarray        # (h, w, 3) channels-last (i1, i1x, i1y):
+                                 # one gather warps all three (ops.bicubic)
     lambda_: jnp.ndarray         # scalars (traced)
     theta: jnp.ndarray
     tau: jnp.ndarray
@@ -96,26 +67,14 @@ class SolverConsts(NamedTuple):
     i_1y: Optional[jnp.ndarray] = None
     gpad: Optional[jnp.ndarray] = None
     occ_prm: Optional[jnp.ndarray] = None  # (alpha,beta,mu,tau_u,tau_eta,tau_chi)
-    # Block-gather planes (ops.blockgather): the TPU-fast replacements for
-    # the per-patch dynamic_slice crops/windows (serial on TPU).  None ->
-    # callers fall back to the slice-based paths.
-    i1_blk: Optional[jnp.ndarray] = None      # (3, h, NB, W) warp blocks
-    i0_blk: Optional[jnp.ndarray] = None      # (h+p, NB, 128) source crops
-    g_blk: Optional[jnp.ndarray] = None       # occ weight crops
-    i_1_blk: Optional[jnp.ndarray] = None     # occ second-frame warp blocks
-    wp_blk: Optional[jnp.ndarray] = None      # (24, h+p, NB, 128) NLTV w
 
 
 def make_solver_consts(method, i0pad, i1, i1x, i1y, lam, theta, tau, tol,
                        wr=P.PAR_DEFAULT_WINSIZE, i0_planes=None, p=None):
     """Build SolverConsts for a growing direction."""
-    i1_stack = jnp.stack([i1, i1x, i1y])
-    blk_on = _blockgather_on("solver")
     kw = dict(
         i0pad=i0pad, i1=i1, i1x=i1x, i1y=i1y,
-        i1_stack=i1_stack,
-        i1_blk=make_warp_blocks(i1_stack) if blk_on else None,
-        i0_blk=make_crop_blocks(i0pad) if blk_on else None,
+        i1_stack=jnp.stack([i1, i1x, i1y], axis=-1),
         lambda_=jnp.float32(lam), theta=jnp.float32(theta),
         tau=jnp.float32(tau), tol=jnp.float32(tol),
     )
@@ -133,8 +92,6 @@ def make_solver_consts(method, i0pad, i1, i1x, i1y, lam, theta, tau, tol,
                                 float(P.NL_INTENSITY))
         pp = p if p is not None else 2 * wr + 1
         kw["wp_pad"] = jnp.pad(jnp.asarray(wp), ((0, 0), (0, pp), (0, pp)))
-        if blk_on:
-            kw["wp_blk"] = make_crop_blocks(kw["wp_pad"])
     return SolverConsts(**kw)
 
 
@@ -144,9 +101,9 @@ def _bounded_pd_loop(cond, body, st, max_iters, unroll_limit=8):
     unroll: each step computes body(st) and keeps the old state where
     ``cond`` already failed.  Values are identical to the (vmapped)
     while_loop (frozen lanes keep their state either way), but the unrolled
-    form has no control-flow barrier, so XLA fuses the whole solve into a
-    few kernels instead of round-tripping the carry through HBM every
-    iteration (measured ~20 ms/sweep at bsz=8192 for the while_loop form).
+    form has no control-flow barrier, so XLA can fuse the whole solve into
+    a few kernels instead of round-tripping the carry through device
+    memory every iteration.
     """
     if max_iters > unroll_limit:
         return jax.lax.while_loop(cond, body, st)
@@ -167,54 +124,24 @@ def _canvas_setup(p, oy, ox, ph, pw, dtype):
     return rows, cols, inbox, gx, gy
 
 
-def _warp_rows() -> int:
-    """Trace-time window-row count for the block-gather warp (the gather's
-    cost is proportional to rows fetched per lane — trace: 5.3 ms/sweep at
-    bsz=8192 with 32 rows).  Vertical coherence tolerance is rows - p - 3
-    (18 px at 32, 10 px at 24, 2 px at 16); samples beyond it clamp to the
-    window edge exactly like the WARP_WIN horizontal budget.  Enters the
-    sweep's jit key via local_step.ordering_dials."""
-    return int(os.environ.get("FALDOI_WARP_ROWS", "24") or 24)
-
-
 def _warp3(sc: SolverConsts, gx, gy, u1, u2, inbox):
-    """Warp (i1, i1x, i1y) at the patch cells' displaced positions — one
-    windowed MXU sample of the stacked planes (the canvas cells of a patch
-    are spatially coherent, so they share one window).  Prefers the
-    block-gather window fetch (no serial per-patch dynamic_slice; see
-    ops.blockgather) and falls back to the slice-based window when the
-    consts carry no blocks."""
+    """Warp (i1, i1x, i1y) at the patch cells' displaced positions: one
+    4x4x3 window gather per cell (ops.bicubic)."""
     su = jnp.where(inbox, u1, 0.0)
     sv = jnp.where(inbox, u2, 0.0)
-    if sc.i1_blk is not None:
-        ny, nx = sc.i1.shape
-        w = bicubic_window_sample_blocks(
-            sc.i1_blk, ny, nx, gx + su, gy + sv, False, WARP_BSTRIDE,
-            nrows=_warp_rows())
-    else:
-        w = bicubic_window_sample(sc.i1_stack, gx + su, gy + sv, False,
-                                  win=WARP_WIN)
-    return w[0], w[1], w[2]
+    w = bicubic_interp_at(sc.i1_stack, gx + su, gy + sv, False)
+    return w[..., 0], w[..., 1], w[..., 2]
 
 
 def _warp1(sc: SolverConsts, gx, gy, u1, u2, inbox):
     """Warp only i1 (the energy eval needs no derivatives)."""
     su = jnp.where(inbox, u1, 0.0)
     sv = jnp.where(inbox, u2, 0.0)
-    if sc.i1_blk is not None:
-        ny, nx = sc.i1.shape
-        return bicubic_window_sample_blocks(
-            sc.i1_blk[:1], ny, nx, gx + su, gy + sv, False, WARP_BSTRIDE,
-            nrows=_warp_rows())[0]
-    return bicubic_window_sample(sc.i1_stack[:1], gx + su, gy + sv, False,
-                                 win=WARP_WIN)[0]
+    return bicubic_interp_at(sc.i1, gx + su, gy + sv, False)
 
 
 def _crop_i0(sc: SolverConsts, oy, ox, p):
-    """Source-frame patch crop — block gather when available."""
-    if sc.i0_blk is not None:
-        return crop_plane_blocks(sc.i0_blk, oy, ox, p)
-    from faldoi_tpu.core.patch_solver import crop_padded
+    """Source-frame patch crop."""
     return crop_padded(sc.i0pad, oy, ox, p)
 
 
@@ -322,12 +249,9 @@ NLTV_OFFS = tuple(neighbor_offsets(NL_BETA))
 def _nltv_crop_weights(sc: SolverConsts, oy, ox, p, rows, cols, ph, pw):
     """Crop the (24, h+p, w+p) weight planes and mask neighbours that leave
     the patch box (validate_ap_patch semantics).  Returns (wp, wt)."""
-    if sc.wp_blk is not None:
-        wp_full = crop_chans_blocks(sc.wp_blk, oy, ox, p)
-    else:
-        wp_full = jax.lax.dynamic_slice(
-            sc.wp_pad, (0, oy, ox), (len(NLTV_OFFS), p, p)
-        )
+    wp_full = jax.lax.dynamic_slice(
+        sc.wp_pad, (0, oy, ox), (len(NLTV_OFFS), p, p)
+    )
     inbox = (rows < ph) & (cols < pw)
     masks = []
     for (dy, dx) in NLTV_OFFS:
@@ -668,12 +592,10 @@ def solve_tvl1_occ(sc, ci, cj, oy, ox, ph, pw, u1, u2, chi, p, warps,
     (guided_tvl2coupled_occ, tvl2_model_occ.cpp:492-779). Note the local
     step's PD cap is params.iterations_of, not max_iter_patch (the reference
     passes iterations_of through ofD->params, :653)."""
-    from faldoi_tpu.core.patch_solver import crop_padded
     from faldoi_tpu.core.occlusion import solve_occ_canvas
 
     i0_patch = _crop_i0(sc, oy, ox, p)
-    g_patch = (crop_plane_blocks(sc.g_blk, oy, ox, p)
-               if sc.g_blk is not None else crop_padded(sc.gpad, oy, ox, p))
+    g_patch = crop_padded(sc.gpad, oy, ox, p)
     alpha, beta, mu, tau_u, tau_eta, tau_chi = (
         sc.occ_prm[0], sc.occ_prm[1], sc.occ_prm[2],
         sc.occ_prm[3], sc.occ_prm[4], sc.occ_prm[5],
@@ -683,7 +605,6 @@ def solve_tvl1_occ(sc, ci, cj, oy, ox, ph, pw, u1, u2, chi, p, warps,
         oy, ox, ph, pw, u1, u2, chi,
         sc.lambda_, sc.theta, alpha, beta, mu,
         tau_u, tau_eta, tau_chi, sc.tol, warps, max_iters,
-        i1_blk=sc.i1_blk, i_1_blk=sc.i_1_blk,
     )
 
 

@@ -1,6 +1,6 @@
 """Global (whole-image) variational refinement — reference "Algorithm 8".
 
-TPU-native rewrite of ``global_faldoi.cpp``'s solvers: each functional's
+JAX rewrite of ``global_faldoi.cpp``'s solvers: each functional's
 warping loop is a Python loop over ``lax.while_loop`` PD iterations, jitted
 as one XLA program.  Per iteration the TV-L1 solver does ~8 stencil passes
 over the image (v-threshold, 2 forward gradients, getD, 2 divergences, getP,

@@ -31,11 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from faldoi_tpu.ops.bicubic import (
-    bicubic_interp_at, bicubic_warp_stack, bicubic_window_sample,
-    bicubic_window_sample_blocks,
-)
-from faldoi_tpu.core.functionals import WARP_BSTRIDE, WARP_WIN
+from faldoi_tpu.ops.bicubic import bicubic_interp_at
 from faldoi_tpu.ops.stencils import (
     centered_gradient,
     divergence_patch,
@@ -56,26 +52,15 @@ def init_weight(i0x, i0y):
     return 1.0 / (1.0 + PAR_DEFAULT_GAMMA * jnp.sqrt(i0x * i0x + i0y * i0y))
 
 
-def _warp3(img, imgx, imgy, gx, gy, u1, u2, inbox, blk=None):
-    """Patch canvases (small, spatially coherent) take the windowed MXU
-    sampler (block-gather window fetch when ``blk`` is provided — see
-    ops.blockgather); the global whole-image canvas keeps the dense gather
-    path (its samples span the full frame, no shared window exists)."""
+def _warp3(img, imgx, imgy, gx, gy, u1, u2, inbox):
+    """Warp (img, imgx, imgy) at the canvas cells' displaced positions with
+    one 4x4x3 window gather per cell.  The same code serves the patch
+    canvases and the global whole-image canvas (oy = ox = 0)."""
     su = jnp.where(inbox, u1, 0.0)
     sv = jnp.where(inbox, u2, 0.0)
-    if max(u1.shape) <= WARP_WIN:
-        if blk is not None:
-            ny, nx = img.shape
-            w = bicubic_window_sample_blocks(
-                blk, ny, nx, gx + su, gy + sv, False, WARP_BSTRIDE)
-        else:
-            w = bicubic_window_sample(jnp.stack([img, imgx, imgy]),
-                                      gx + su, gy + sv, False, win=WARP_WIN)
-        return w[0], w[1], w[2]
-    # global branch: the canvas IS the image grid (oy=ox=0), so the sample
-    # coordinates are grid + (su, sv) — exactly the tiled dense warp
-    w = bicubic_warp_stack(jnp.stack([img, imgx, imgy]), su, sv, False)
-    return w[0], w[1], w[2]
+    w = bicubic_interp_at(jnp.stack([img, imgx, imgy], axis=-1),
+                          gx + su, gy + sv, False)
+    return w[..., 0], w[..., 1], w[..., 2]
 
 
 def _get_xi(xi, g, v1, v2, chix, chiy, ph, pw, theta, beta, tau_u):
@@ -145,7 +130,6 @@ def solve_occ_canvas(
     u1, u2, chi,          # initial state on the canvas
     prm_lambda, prm_theta, prm_alpha, prm_beta, prm_mu,
     tau_u, tau_eta, tau_chi, tol, warps, max_iters,
-    i1_blk=None, i_1_blk=None,
 ):
     """guided_tvl2coupled_occ (:492-779) on one canvas. Returns
     (u1, u2, chi, ener)."""
@@ -163,8 +147,8 @@ def solve_occ_canvas(
     v1, v2 = u1, u2
 
     for _ in range(warps):
-        i1w, i1wx, i1wy = _warp3(i1_full, i1x, i1y, gx, gy, u1, u2, inbox, i1_blk)
-        i_1w, i_1wx, i_1wy = _warp3(i_1_full, i_1x, i_1y, gx, gy, -u1, -u2, inbox, i_1_blk)
+        i1w, i1wx, i1wy = _warp3(i1_full, i1x, i1y, gx, gy, u1, u2, inbox)
+        i_1w, i_1wx, i_1wy = _warp3(i_1_full, i_1x, i_1y, gx, gy, -u1, -u2, inbox)
         grad_1 = i1wx * i1wx + i1wy * i1wy
         grad__1 = i_1wx * i_1wx + i_1wy * i_1wy
         rho_c1 = i1w - i1wx * u1 - i1wy * u2 - i0_patch
@@ -248,8 +232,8 @@ def solve_occ_canvas(
     u2x, u2y = forward_gradient_patch(u2, ph, pw)
     chix, chiy = forward_gradient_patch(chi, ph, pw)
     div_u = divergence_patch(u1, u2, ph, pw)
-    i1w, i1wx, i1wy = _warp3(i1_full, i1x, i1y, gx, gy, u1, u2, inbox, i1_blk)
-    i_1w, i_1wx, i_1wy = _warp3(i_1_full, i_1x, i_1y, gx, gy, -u1, -u2, inbox, i_1_blk)
+    i1w, i1wx, i1wy = _warp3(i1_full, i1x, i1y, gx, gy, u1, u2, inbox)
+    i_1w, i_1wx, i_1wy = _warp3(i_1_full, i_1x, i_1y, gx, gy, -u1, -u2, inbox)
     diff_uv = (1.0 / (2.0 * prm_theta)) * ((u1 - v1) ** 2 + (u2 - v2) ** 2)
     norm_v = (prm_alpha / 2.0) * chi * (v1 * v1 + v2 * v2)
     div_u_t = prm_beta * chi * div_u

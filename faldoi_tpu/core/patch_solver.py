@@ -1,6 +1,6 @@
 """Batched per-patch TV-L1 primal-dual solver.
 
-TPU re-design of the local step's per-seed solves (``guided_tvl2coupled``,
+Batched form of the local step's per-seed solves (``guided_tvl2coupled``,
 ``tvl2_model.cpp:249-435`` + ``eval_tvl2coupled`` ``:174-243``): instead of
 one scalar patch solve per priority-queue pop, we solve *all* patches of a
 wavefront sweep simultaneously — each patch lives on a static (P, P) canvas
@@ -62,14 +62,17 @@ def crop_canvas(img: jnp.ndarray, oy, ox, p: int):
 
 def pad_for_crops(img: jnp.ndarray, p: int) -> jnp.ndarray:
     """Edge-pad bottom/right by p so crop_padded() can use dynamic_slice
-    (equivalent to the clamped gather for non-negative origins, but far
-    cheaper on TPU)."""
+    (equivalent to the clamped gather for non-negative origins)."""
     return jnp.pad(img, ((0, p), (0, p)), mode="edge")
 
 
 def crop_padded(img_pad: jnp.ndarray, oy, ox, p: int):
-    """dynamic_slice crop from a pad_for_crops()-prepared image."""
-    return jax.lax.dynamic_slice(img_pad, (oy, ox), (p, p))
+    """(p, p, *chans) dynamic_slice crop at (oy, ox) from a padded
+    (H, W, *chans) stack (pad_for_crops() for one plane).  Under vmap this
+    is one batched gather; values are copied bit for bit."""
+    chans = img_pad.shape[2:]
+    return jax.lax.dynamic_slice(
+        img_pad, (oy, ox) + (0,) * len(chans), (p, p) + chans)
 
 
 def _solve_one(

@@ -24,9 +24,7 @@ from faldoi_tpu.ops.bicubic import bicubic_warp, bicubic_warp_stack
 def fb_consistency_check(u1, u2, bu1, bu2, epsilon):
     """Returns trust mask (1 trusted / 0 occluded) for the forward flow
     (u1, u2) given the backward flow (bu1, bu2)."""
-    # flows are dense at prune time; sanitize residual non-finites anyway —
-    # the MXU window matmul would propagate a NaN window cell to every
-    # sample in its tile (0 * NaN), unlike the 16-tap gather
+    # flows are dense at prune time; residual non-finites read as 0
     bstack = jnp.stack([jnp.nan_to_num(bu1), jnp.nan_to_num(bu2)])
     u1w, u2w = bicubic_warp_stack(bstack, u1, u2, True)
     tol = jnp.hypot(u1 + u1w, u2 + u2w)

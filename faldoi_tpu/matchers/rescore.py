@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import numpy as np
 import scipy.ndimage
-from PIL import Image
 
 
 def _smooth2(img, sigma):
@@ -60,6 +59,8 @@ def score_from_autocorr(img0, img1, corres):
 def confidence_values(i0_path: str, i1_path: str, match_path: str, dest_dir: str) -> str:
     """Score a DeepMatching 6-column output file; writes the 5-column
     ``*_saliency.txt`` next to ``dest_dir`` (rescore_prunning.py:60-84)."""
+    from PIL import Image
+
     img0 = np.asarray(Image.open(i0_path).convert("RGB"))
     img1 = np.asarray(Image.open(i1_path).convert("RGB"))
     ty0, tx0 = img0.shape[:2]

@@ -2,7 +2,7 @@
 //
 // The reference's only native runtime layer is its vendored image-I/O
 // library (src/iio.c) plus text match-list parsing scattered through the
-// pipeline executables.  This module provides the TPU framework's
+// pipeline executables.  This module provides this framework's
 // equivalents as a CPython extension: a zero-copy Middlebury .flo codec
 // and a fast 4/5/6-column match-list parser (the hot host-side paths when
 // streaming video datasets through the pipeline).

@@ -12,270 +12,116 @@ exact semantics (verified element-wise against a C-transliteration oracle):
   0 there, ``border_out=False`` extrapolates with the clamped stencil,
 * interpolation fractions are ``uu - x_clamped``.
 
-TPU design: instead of 16 independent point gathers (which blow up both
-compile time and gather bandwidth), we fetch ONE contiguous 4x4 window per
-sample with ``lax.gather`` and evaluate the separable Catmull-Rom basis as
-window-relative weights — the per-element Neumann clamping (which can
-duplicate edge samples, unlike a clamped window) is folded into the weights
-by accumulating each element's basis coefficient onto its clamped relative
-offset.
+Instead of 16 independent point gathers, each sample fetches ONE
+contiguous 4x4 window with ``lax.gather`` (4x4xC for channels-last stacks,
+so planes warped by the same flow share one gather) that holds all of its
+Neumann-clamped stencil taps, picks the 16 taps out of it by selects
+(duplicated edge taps included) and evaluates the reference's cubic in
+the same Horner form and order.  The arithmetic is plain float32: no
+matrix unit and no reduced precision.
 """
 
 from __future__ import annotations
 
 import functools
 
-import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 
 
-def _basis(t):
-    """Catmull-Rom basis over the stencil order [m, 0, d, dd]
-    (cubic_interpolation_cell, bicubic_interpolation.c:103-111)."""
-    t2 = t * t
-    t3 = t2 * t
-    a0 = 0.5 * (-t + 2.0 * t2 - t3)
-    a1 = 1.0 - 2.5 * t2 + 1.5 * t3
-    a2 = 0.5 * (t + 4.0 * t2 - 3.0 * t3)
-    a3 = 0.5 * (t3 - t2)
-    return a0, a1, a2, a3
-
-
-def _axis_weights(i0, s, n, frac_origin, basis):
-    """Per-window-offset weights for one axis.
-
-    i0: truncated coordinate, s: stencil sign step, n: axis size.
-    Returns (win_start, w0..w3 weights over window offsets, out_flag)."""
-    # element positions in stencil order [i0-s, i0, i0+s, i0+2s]
-    ps = [i0 - s, i0, i0 + s, i0 + 2 * s]
-    out = jnp.zeros(i0.shape, bool)
-    cl = []
-    for p in ps:
-        out = out | (p < 0) | (p >= n)
-        cl.append(jnp.clip(p, 0, n - 1))
-    # contiguous window covering the stencil set
-    wstart = jnp.clip(jnp.where(s > 0, i0 - 1, i0 - 2), 0, jnp.maximum(n - 4, 0))
-    frac = frac_origin - cl[1].astype(frac_origin.dtype)
-    a = basis(frac)
-    # accumulate each element's coefficient onto its clamped window offset
-    w = [jnp.zeros(i0.shape, frac.dtype) for _ in range(4)]
-    for ai, pi in zip(a, cl):
-        rel = jnp.clip(pi - wstart, 0, 3)
-        for k in range(4):
-            w[k] = w[k] + jnp.where(rel == k, ai, 0.0)
-    return wstart, w, out
+def _cubic(v, t):
+    """cubic_interpolation_cell (bicubic_interpolation.c:103-111) in its
+    Horner form: duplicated (clamped) taps cancel exactly, so samples far
+    outside the image stay exact."""
+    return v[1] + 0.5 * t * (v[2] - v[0] + t * (
+        2.0 * v[0] - 5.0 * v[1] + 4.0 * v[2] - v[3]
+        + t * (3.0 * (v[1] - v[2]) + v[3] - v[0])))
 
 
 def _gather_windows(img, wy, wx):
-    """Gather (..., 4, 4) windows from img at integer starts (wy, wx)."""
+    """Gather (..., 4, 4, *chans) windows from img (h, w, *chans) at integer
+    starts (wy, wx)."""
     idx = jnp.stack([wy, wx], axis=-1).reshape(-1, 2)
+    chans = img.shape[2:]
     dn = lax.GatherDimensionNumbers(
-        offset_dims=(1, 2),
+        offset_dims=tuple(range(1, 3 + len(chans))),
         collapsed_slice_dims=(),
         start_index_map=(0, 1),
     )
     wins = lax.gather(
-        img, idx, dn, slice_sizes=(4, 4), mode=lax.GatherScatterMode.CLIP
+        img, idx, dn, slice_sizes=(4, 4) + chans,
+        mode=lax.GatherScatterMode.CLIP,
     )
-    return wins.reshape(wy.shape + (4, 4))
+    return wins.reshape(wy.shape + (4, 4) + chans)
 
 
-def _sample_weights(ny: int, nx: int, uu: jnp.ndarray, vv: jnp.ndarray):
-    """Shared per-sample stencil geometry: 4-window starts (wy, wx), the four
-    separable weights per axis (wys, wxs; accumulated with the reference's
-    clamping semantics), and the out-of-domain flag."""
+def _stencil(ny: int, nx: int, uu: jnp.ndarray, vv: jnp.ndarray):
+    """Per-sample stencil geometry: the 4x4 window starts (wy, wx), the
+    window-relative offsets of the reference's stencil rows
+    [my, y, dy, ddy] and columns [mx, x, dx, ddx] (clamped to the image,
+    duplicates kept), the fractions (vv - y, uu - x) and the out-of-domain
+    flag.  The clamped taps of one axis always lie in one 4-window."""
     sx = jnp.where(uu < 0, -1, 1).astype(jnp.int32)
     sy = jnp.where(vv < 0, -1, 1).astype(jnp.int32)
     iu = uu.astype(jnp.int32)  # C (int) cast: truncation toward zero
     iv = vv.astype(jnp.int32)
 
-    wx, wxs, ox = _axis_weights(iu, sx, nx, uu, _basis)
-    # sic: the row stencil uses sx for its 'm' offset
-    # (bicubic_interpolation.c:159) — reproduce by building the row element
-    # list manually.
-    ps = [iv - sx, iv, iv + sy, iv + 2 * sy]
-    oy = jnp.zeros(iv.shape, bool)
-    cl = []
-    for p in ps:
-        oy = oy | (p < 0) | (p >= ny)
-        cl.append(jnp.clip(p, 0, ny - 1))
-    # the row window must cover {iv-sx, iv, iv+sy, iv+2sy}; with the sign
-    # quirk the set can span [iv-2, iv+2] — widen the logic: window start
-    # chosen from the element minimum, elements clamped into [0,3] (any
-    # element falling outside the window contributes at the clamped edge,
-    # matching duplicated-sample semantics only when it equals that edge;
-    # for in-domain samples the set always fits a 4-window).
-    pmin = jnp.minimum(jnp.minimum(cl[0], cl[1]), jnp.minimum(cl[2], cl[3]))
-    wy = jnp.clip(pmin, 0, jnp.maximum(ny - 4, 0))
-    fy = vv - cl[1].astype(uu.dtype)
-    ay = _basis(fy)
-    wys = [jnp.zeros(iv.shape, uu.dtype) for _ in range(4)]
-    for ai, pi in zip(ay, cl):
-        rel = jnp.clip(pi - wy, 0, 3)
-        for k in range(4):
-            wys[k] = wys[k] + jnp.where(rel == k, ai, 0.0)
-    return wy, wx, wys, wxs, ox | oy
+    def taps(ps, n):
+        out = jnp.zeros(iu.shape, bool)
+        cl = []
+        for p in ps:
+            out = out | (p < 0) | (p >= n)
+            cl.append(jnp.clip(p, 0, n - 1))
+        start = jnp.clip(functools.reduce(jnp.minimum, cl), 0,
+                         max(n - 4, 0))
+        return start, [c - start for c in cl], cl[1], out
+
+    wx, rx, x, ox = taps([iu - sx, iu, iu + sx, iu + 2 * sx], nx)
+    # sic: the 'my' row uses sx (bicubic_interpolation.c:159)
+    wy, ry, y, oy = taps([iv - sx, iv, iv + sy, iv + 2 * sy], ny)
+    return wy, wx, ry, rx, vv - y.astype(vv.dtype), uu - x.astype(uu.dtype), \
+        ox | oy
+
+
+def _pick(vals, rel):
+    """vals[rel] for a per-sample offset rel in [0, 4), by selects (no
+    arithmetic: a NaN elsewhere in the window does not leak in)."""
+    return jnp.where(rel == 0, vals[0], jnp.where(
+        rel == 1, vals[1], jnp.where(rel == 2, vals[2], vals[3])))
 
 
 def bicubic_interp_at(img: jnp.ndarray, uu: jnp.ndarray, vv: jnp.ndarray,
                       border_out: bool):
-    """Sample ``img`` (h, w) at positions (x=uu, y=vv)."""
-    ny, nx = img.shape
-    wy, wx, wys, wxs, out = _sample_weights(ny, nx, uu, vv)
+    """Sample ``img`` at positions (x=uu, y=vv).
 
-    wins = _gather_windows(img, wy, wx)  # (..., 4 rows, 4 cols)
-    r = jnp.zeros(uu.shape, img.dtype)
-    for k in range(4):
-        row = jnp.zeros(uu.shape, img.dtype)
-        for l in range(4):
-            row = row + wxs[l] * wins[..., k, l]
-        r = r + wys[k] * row
+    ``img`` is one plane (h, w) -> result ``uu.shape``, or a channels-last
+    stack (h, w, C) sampled at the same positions -> ``uu.shape + (C,)``."""
+    ny, nx = img.shape[:2]
+    wy, wx, ry, rx, fy, fx, out = _stencil(ny, nx, uu, vv)
+
+    wins = _gather_windows(img, wy, wx)  # (..., 4 rows, 4 cols, *chans)
+    if img.ndim == 3:
+        wins = jnp.moveaxis(wins, -1, -3)  # (..., C, 4, 4)
+        ry, rx = [a[..., None] for a in ry], [a[..., None] for a in rx]
+        fy, fx, out = fy[..., None], fx[..., None], out[..., None]
+    # window rows sampled at the four stencil columns, then each stencil
+    # column interpolated down its stencil rows (the reference's order)
+    at_cols = [[_pick([wins[..., a, b] for b in range(4)], rx[l])
+                for l in range(4)] for a in range(4)]
+    cols = [_cubic([_pick([at_cols[a][l] for a in range(4)], ry[k])
+                    for k in range(4)], fy) for l in range(4)]
+    r = _cubic(cols, fx)
 
     if border_out:
         r = jnp.where(out, 0.0, r)
     return r
 
 
-def bicubic_window_sample(planes: jnp.ndarray, uu: jnp.ndarray,
-                          vv: jnp.ndarray, border_out: bool,
-                          win: int = 32) -> jnp.ndarray:
-    """MXU-friendly bicubic sampling for *spatially coherent* sample sets.
-
-    ``planes``: (C, ny, nx) stacked images sampled at the same positions.
-    ``uu, vv``: (...,) sample coordinates that all fall inside one
-    ``win``x``win`` window (e.g. the cells of one local-step patch warped by
-    a smooth flow).  Returns (C, ...) samples.
-
-    TPU-native design: the per-sample 4x4 gather (the hot op of the local
-    step, ``bicubic_interpolation_warp_patch``, bicubic_interpolation.c:276)
-    is re-expressed as two dense one-hot contractions on the MXU:
-    ``out[c,s] = Wy[s,:] @ window[c] @ Wx[s,:]^T`` where Wy/Wx hold each
-    sample's 4 Catmull-Rom taps scattered into window-relative rows.  This
-    replaces ~88ns/element gathers with matmuls (measured ~150x faster at
-    batch 1024 on TPU v5e).
-
-    Samples whose stencil falls outside the window (intra-patch coordinate
-    spread > win-4, i.e. a flow discontinuity of that magnitude inside one
-    patch) are clamped to the window edge — callers choose ``win`` large
-    enough for their coherence radius.  The local step detects this
-    host-side and warns (core.match_growing.warp_window_overflow); raise
-    FALDOI_WARP_WIN for large-motion data.
-    """
-    c, ny, nx = planes.shape
-    wy, wx, wys, wxs, out = _sample_weights(ny, nx, uu, vv)
-    shape = uu.shape
-    s = int(np.prod(shape)) if shape else 1
-    wy = wy.reshape(s)
-    wx = wx.reshape(s)
-    win_y = min(win, ny)
-    win_x = min(win, nx)
-
-    oy = jnp.clip(jnp.min(wy), 0, max(ny - win_y, 0))
-    ox = jnp.clip(jnp.min(wx), 0, max(nx - win_x, 0))
-    rel_y = jnp.clip(wy - oy, 0, win_y - 4)
-    rel_x = jnp.clip(wx - ox, 0, win_x - 4)
-
-    window = lax.dynamic_slice(planes, (0, oy, ox), (c, win_y, win_x))
-
-    ry = jnp.arange(win_y)
-    rx = jnp.arange(win_x)
-    wy_mat = jnp.zeros((s, win_y), planes.dtype)
-    wx_mat = jnp.zeros((s, win_x), planes.dtype)
-    for k in range(4):
-        wy_mat = wy_mat + jnp.where(
-            (rel_y + k)[:, None] == ry, wys[k].reshape(s)[:, None], 0.0
-        )
-        wx_mat = wx_mat + jnp.where(
-            (rel_x + k)[:, None] == rx, wxs[k].reshape(s)[:, None], 0.0
-        )
-
-    # Contraction precision: f32 inputs on the MXU run as multi-pass bf16;
-    # HIGHEST (6 passes) reproduces f32 accumulation, HIGH (3 passes) is
-    # ~2x faster at ~2^-18 relative error.  The weight rows are 4-sparse
-    # one-hots whose values are exact in bf16 head+tails, so HIGH's error
-    # is well under the solver tol (0.01^2); parity measured unchanged
-    # (EXPERIMENTS_r03.jsonl: prec=high).  FALDOI_WARP_PREC=highest restores
-    # the bit-conservative path.
-    import os as _os
-    _prec = {"highest": lax.Precision.HIGHEST, "high": lax.Precision.HIGH,
-             "default": lax.Precision.DEFAULT}[
-        _os.environ.get("FALDOI_WARP_PREC", "high")]
-    t = jnp.einsum("sr,crk->csk", wy_mat, window, precision=_prec)
-    r = jnp.einsum("csk,sk->cs", t, wx_mat, precision=_prec)
-    r = r.reshape((c,) + shape)
-    if border_out:
-        r = jnp.where(out[None], 0.0, r)
-    return r
-
-
-def bicubic_window_sample_blocks(blocks: jnp.ndarray, ny: int, nx: int,
-                                 uu: jnp.ndarray, vv: jnp.ndarray,
-                                 border_out: bool, stride: int,
-                                 nrows: int = 32) -> jnp.ndarray:
-    """``bicubic_window_sample`` reading from column blocks — no per-patch
-    ``dynamic_slice``.
-
-    ``blocks``: (C, ny, NB, width) from ``ops.blockgather.make_col_blocks``
-    over the stacked (C, ny, nx) planes.  The per-patch window fetch becomes
-    advanced indexing ``blocks[:, oy + arange(nrows), bx]`` — under the
-    sweep's vmap this is ONE batched fast gather instead of the serial
-    per-patch slice loop that dominated the sweep cost (see
-    ops.blockgather module docstring; measured in EXPERIMENTS_r03.jsonl).
-
-    Values match ``bicubic_window_sample`` (same taps, same one-hot
-    contraction structure; the wider one-hot rows add exact zeros).
-    Coherence tolerance: all samples of one call must fit one block →
-    intra-call coordinate spread <= width - stride - 3 (width 64/stride 32
-    ≈ the old win=32 tolerance).
-    """
-    c, _ny, nb, width = blocks.shape
-    wy, wx, wys, wxs, out = _sample_weights(ny, nx, uu, vv)
-    shape = uu.shape
-    s = int(np.prod(shape)) if shape else 1
-    wy = wy.reshape(s)
-    wx = wx.reshape(s)
-    nr = min(nrows, ny)
-
-    oy = jnp.clip(jnp.min(wy), 0, max(ny - nr, 0))
-    bx = jnp.clip(jnp.min(wx), 0, max(nx - 4, 0)) // stride
-    bx = jnp.minimum(bx, nb - 1)
-    rel_y = jnp.clip(wy - oy, 0, nr - 4)
-    rel_x = jnp.clip(wx - bx * stride, 0, width - 4)
-
-    g = blocks[:, oy + jnp.arange(nr), bx]          # (C, nr, width)
-
-    ry = jnp.arange(nr)
-    rx = jnp.arange(width)
-    wy_mat = jnp.zeros((s, nr), blocks.dtype)
-    wx_mat = jnp.zeros((s, width), blocks.dtype)
-    for k in range(4):
-        wy_mat = wy_mat + jnp.where(
-            (rel_y + k)[:, None] == ry, wys[k].reshape(s)[:, None], 0.0
-        )
-        wx_mat = wx_mat + jnp.where(
-            (rel_x + k)[:, None] == rx, wxs[k].reshape(s)[:, None], 0.0
-        )
-
-    import os as _os
-    _prec = {"highest": lax.Precision.HIGHEST, "high": lax.Precision.HIGH,
-             "default": lax.Precision.DEFAULT}[
-        _os.environ.get("FALDOI_WARP_PREC", "high")]
-    # contract the wide (lane) dim first so the intermediate stays small
-    t = jnp.einsum("sk,crk->csr", wx_mat, g, precision=_prec)
-    r = jnp.einsum("csr,sr->cs", t, wy_mat, precision=_prec)
-    r = r.reshape((c,) + shape)
-    if border_out:
-        r = jnp.where(out[None], 0.0, r)
-    return r
-
-
 def bicubic_out_flag(ny: int, nx: int, uu: jnp.ndarray, vv: jnp.ndarray):
     """The reference's out-of-domain flag (bicubic_interpolation_at,
     bicubic_interpolation.c:146-163, incl. the row quirk) for GLOBAL
-    coordinates — for callers that sample from a local window/band whose
-    edges are not the image border (e.g. the spatially-sharded warp)."""
+    coordinates — for callers that sample from a band whose edges are not
+    the image border (the spatially-sharded warp)."""
     sx = jnp.where(uu < 0, -1, 1).astype(jnp.int32)
     sy = jnp.where(vv < 0, -1, 1).astype(jnp.int32)
     iu = uu.astype(jnp.int32)
@@ -299,36 +145,12 @@ def bicubic_warp(img: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray,
 
 
 def bicubic_warp_stack(planes: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray,
-                       border_out: bool, tile: int = 32,
-                       win: int = 96) -> jnp.ndarray:
-    """Warp (C, ny, nx) stacked planes by one flow — tiled MXU formulation.
-
-    The dense per-point 4x4 gather costs ~1.1 s/plane at 436x1024 on TPU
-    v5e; this version cuts the image into ``tile``x``tile`` blocks, gives
-    each block one ``win``x``win`` window (dynamic_slice) and evaluates the
-    separable Catmull-Rom taps as one-hot matmuls (see
-    ``bicubic_window_sample``), sharing the weight matrices across planes.
-
-    Requires the flow spread inside any tile to fit the window:
-    max|u| variation per tile <= win - tile - 4.  Samples beyond that are
-    clamped to the window edge (flow discontinuities larger than ~:math:`win
-    - tile - 4` px inside one tile deviate; callers pick ``win``).
-    """
-    c, ny, nx = planes.shape
-    ty = -(-ny // tile)
-    tx = -(-nx // tile)
-    # pad image planes to tile multiples (edge), coordinates stay global
-    jj = jnp.arange(tx * tile, dtype=planes.dtype)[None, :]
-    ii = jnp.arange(ty * tile, dtype=planes.dtype)[:, None]
-    up = jnp.pad(u, ((0, ty * tile - ny), (0, tx * tile - nx)), mode="edge")
-    vp = jnp.pad(v, ((0, ty * tile - ny), (0, tx * tile - nx)), mode="edge")
-    uu = (jj + up).reshape(ty, tile, tx, tile).transpose(0, 2, 1, 3)
-    vv = (ii + vp).reshape(ty, tile, tx, tile).transpose(0, 2, 1, 3)
-
-    sample = functools.partial(bicubic_window_sample, border_out=border_out,
-                               win=win)
-    out = jax.vmap(jax.vmap(sample, in_axes=(None, 0, 0), out_axes=1),
-                   in_axes=(None, 0, 0), out_axes=1)(planes, uu, vv)
-    # (C, ty, tx, tile, tile) -> (C, ny, nx)
-    out = out.transpose(0, 1, 3, 2, 4).reshape(c, ty * tile, tx * tile)
-    return out[:, :ny, :nx]
+                       border_out: bool) -> jnp.ndarray:
+    """Warp (C, ny, nx) stacked planes by one flow: one 4x4xC window gather
+    per pixel shared by all planes.  Returns (C, ny, nx)."""
+    _, ny, nx = planes.shape
+    jj = jnp.arange(nx, dtype=planes.dtype)[None, :]
+    ii = jnp.arange(ny, dtype=planes.dtype)[:, None]
+    out = bicubic_interp_at(jnp.moveaxis(planes, 0, -1), jj + u, ii + v,
+                            border_out)
+    return jnp.moveaxis(out, -1, 0)

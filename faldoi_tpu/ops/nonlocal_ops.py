@@ -2,10 +2,10 @@
 
 The reference stores per-pixel neighbour lists (``DualVariables_global``,
 global_faldoi.cpp:890-897; ``DualVariables``, energy_structures.h:117-124)
-and loops over them with gathers.  On TPU we instead keep one (n_d, h, w)
+and loops over them with gathers.  Here we instead keep one (n_d, h, w)
 plane per quantity and express neighbour access as *static shifts* — each of
 the 24 (5x5-1) offsets is a compile-time roll, so the whole non-local
-operator vectorises on the VPU with no gathers.
+operator is elementwise work with no gathers.
 
 Conventions (matching initialize_dual_variables, global_faldoi.cpp:996-1054):
 * offsets enumerated k (dy) outer, l (dx) inner, skipping (0,0);

@@ -1,6 +1,6 @@
 """Batched Poisson/harmonic hole filling on fixed-size patch canvases.
 
-TPU re-design of ``src/elap_recsep.c`` (used by ``interpolate_poisson``,
+Batched re-design of ``src/elap_recsep.c`` (used by ``interpolate_poisson``,
 ``local_faldoi.cpp:326-368``): coarse-to-fine multigrid where each level
 fills NaN holes by a few relaxation sweeps of the Laplace equation, with the
 coarse solution (2x zoom-out with NaN-discarding block averages) as init.

@@ -2,15 +2,15 @@
 
 The reference has no distributed backend (SURVEY §2.6): its parallelism is
 OpenMP threads (subsumed here by XLA vectorisation) and spatial partitions
-(``-split_img``).  The TPU-native scaling axes are:
+(``-split_img``).  The scaling axes here are:
 
 * **data parallelism** over frame pairs (axis ``data``): each chip solves
   whole pairs; no collectives inside a solve.  This is the production
   throughput axis — optical flow over a video/dataset is embarrassingly
   parallel across pairs.
 * **spatial parallelism** (axis ``space``): one frame's rows sharded across
-  chips, with 1-row halo exchanges (``ppermute`` over ICI) around each PD
-  iteration's stencils — the TPU-native replacement for the reference's
+  chips, with 1-row halo exchanges (``ppermute``) around each PD
+  iteration's stencils — the replacement for the reference's
   ``-split_img`` partition threads (``aux_partitions.cpp``), with halos
   instead of the reference's seam-avoiding grid transposes.
 

@@ -3,7 +3,7 @@
 The reference partitions the local growing across OpenMP threads with
 ``-split_img`` (aux_partitions.cpp:47-270; one sub-image per thread, queues
 rebinned between iterations, grid transposed every other iteration to avoid
-seams).  The TPU-native replacement shards the growing STATE by rows over
+seams).  The replacement here shards the growing STATE by rows over
 the mesh's 'space' axis and keeps every sweep's semantics:
 
 * each shard owns ``hs = h / n_space`` rows of every state plane and runs
@@ -56,7 +56,7 @@ from faldoi_tpu.core.local_step import GrowState, _sweep_body
 
 # Module-level cache of jitted shard_map drain programs, keyed on every
 # trace-affecting parameter (mesh, geometry, solver, dials, rung, ...).
-# Hoisted out of spatial_match_growing (advisor r4): a per-call cache
+# Hoisted out of spatial_match_growing: a per-call cache
 # re-traced and re-jitted every (rung, fi, fs) variant on every call —
 # ~half of the r4 multichip-dryrun timeout.  jax.jit's own dispatch cache
 # is per-callable, so the callable itself must be reused across calls.
@@ -352,7 +352,7 @@ def spatial_match_growing(
     # * programs live in the MODULE-level _DRAIN_CACHE keyed on every
     #   trace-affecting parameter, so they are traced once per variant and
     #   reused across chunks, outer iterations AND spatial_match_growing
-    #   calls (a per-call cache re-traced everything each call — advisor r4).
+    #   calls (a per-call cache re-traced everything each call).
     chunk = int(_os.environ.get("FALDOI_GROW_CHUNK", "16"))
     floor_pin = bsz_shard if relax else max(1, bsz_shard // 16)
     fs_late = int(_os.environ.get("FALDOI_GROW_FS_LATE", "0")) or min(

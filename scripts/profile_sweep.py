@@ -22,11 +22,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
-)
 
 import numpy as np
 import jax
@@ -54,8 +49,9 @@ def bench(fn, *args, reps=10, warmup=2):
 
 def main():
     bszs = [int(a) for a in sys.argv[1:]] or [512, 2048, 8192]
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
+    from faldoi_tpu.profiling import enable_compile_cache
+
+    enable_compile_cache()
     dev = jax.devices()[0]
     print(f"# device: {dev}")
     rng = np.random.default_rng(0)

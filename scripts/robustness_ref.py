@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Self-contained ROBUSTNESS grid: ours AND the reference binaries on the
-SAME committed seeds (VERDICT r4 item 6 — the r4 grid carried only our
+SAME committed seeds (the earlier grid carried only our
 EPE numbers; the reference's numbers lived in prose).
 
 For every (dataset, matcher, epsilon) row of the r4 grid, this script:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Outlier visualization — the TPU port of ``scripts_python/show_outliers.sh``.
+"""Outlier visualization — the JAX port of ``scripts_python/show_outliers.sh``.
 
 The reference script runs hard Sintel sequences x2 matchers and leaves the
 outlier inspection to an external viewer; this one renders the outlier maps

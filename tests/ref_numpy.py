@@ -170,6 +170,41 @@ def bicubic_at(img, uu, vv, border_out):
     return np.float32(_cubic(cols, uu - x))
 
 
+def bicubic_at_vec(img, uu, vv, border_out):
+    """``bicubic_at`` over arrays of positions at once, in float64: the
+    same stencil, Neumann clamps and my/sx quirk, vectorised so that
+    whole frames can be checked."""
+    img = np.asarray(img, np.float64)
+    uu = np.asarray(uu, np.float64)
+    vv = np.asarray(vv, np.float64)
+    ny, nx = img.shape
+    sx = np.where(uu < 0, -1, 1)
+    sy = np.where(vv < 0, -1, 1)
+    iu = np.trunc(uu).astype(np.int64)
+    iv = np.trunc(vv).astype(np.int64)
+    out = np.zeros(uu.shape, bool)
+
+    def neumann(p, n):
+        nonlocal out
+        out = out | (p < 0) | (p >= n)
+        return np.clip(p, 0, n - 1)
+
+    x = neumann(iu, nx)
+    y = neumann(iv, ny)
+    mx = neumann(iu - sx, nx)
+    my = neumann(iv - sx, ny)  # sic: sx
+    dx = neumann(iu + sx, nx)
+    dy = neumann(iv + sy, ny)
+    ddx = neumann(iu + 2 * sx, nx)
+    ddy = neumann(iv + 2 * sy, ny)
+    cols = [_cubic([img[my, cx], img[y, cx], img[dy, cx], img[ddy, cx]],
+                   vv - y) for cx in (mx, x, dx, ddx)]
+    r = _cubic(cols, uu - x)
+    if border_out:
+        r = np.where(out, 0.0, r)
+    return r
+
+
 def bicubic_warp(img, u, v, border_out):
     ny, nx = img.shape
     out = np.zeros_like(img)

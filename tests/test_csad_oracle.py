@@ -10,7 +10,7 @@ Transliterates the reference patch solvers loop-for-loop:
   reference warm-starts image-wide duals across solves — a serial side
   effect; cold-vs-cold isolates the solver math).
 
-Both run on a real clean/easy crop with a GT-perturbed init and must match
+Both run on a crop of the seeded pair with a known-flow-perturbed init and must match
 our canvas solvers to float tolerance.
 """
 
@@ -19,8 +19,6 @@ import pytest
 
 import jax.numpy as jnp
 
-from faldoi_tpu.io import read_flo
-from faldoi_tpu.io.image import read_image_split
 from faldoi_tpu.core.preprocess import prepare_pair
 from faldoi_tpu.core.functionals import (
     SOLVERS, make_solver_consts, NLTV_OFFS, CSAD_OFFS,
@@ -31,8 +29,7 @@ from faldoi_tpu.core.patch_solver import pad_for_crops
 from faldoi_tpu import params as P
 from tests.ref_numpy import bicubic_at
 
-BASE = "/root/reference/example_data/clean/easy/"
-SL = np.s_[100:164, 300:364]
+CROP = (100, 300, 64, 64)
 WR, PATCH = 5, 11
 TOL, MAXIT, WARPS = 0.01, 4, 1
 
@@ -222,9 +219,9 @@ def ref_guided_nltvcsad(i0, i1, u1, u2, wp, oy, ox, lam, theta, tau):
 
 @pytest.fixture(scope="module")
 def crop():
-    i0p = read_image_split(BASE + "frame_0002.png")[:, SL[0], SL[1]]
-    i1p = read_image_split(BASE + "frame_0003.png")[:, SL[0], SL[1]]
-    gt = read_flo(BASE + "gt/frame_0002.flo")[SL[0], SL[1]]
+    from tests import seeded
+
+    i0p, i1p, gt = seeded.pair(CROP)
     a, b = prepare_pair(i0p, i1p)
     return np.asarray(a), np.asarray(b), gt, i0p
 

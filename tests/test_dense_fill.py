@@ -1,4 +1,4 @@
-"""Oracle for the default ``fill="dense"`` deviation (VERDICT weak #8).
+"""Oracle for the default ``fill="dense"`` deviation.
 
 ``_dense_fill`` (core/local_step.py) replaces the reference's per-patch
 Poisson interpolation (``interpolate_poisson``, local_faldoi.cpp:326-368 /

@@ -64,10 +64,21 @@ def test_rg_close_to_reference_binaries(pipeline_out):
     assert _epe(rg, ref) <= 0.15, "rg EPE vs reference binaries"
 
 
-def test_growing_fills_every_pixel(pipeline_out):
+def test_growing_fills_every_pixel():
     """Property from SURVEY §4: the growing must fill 100% of pixels (the
-    reference's local_growing drains the queue until every pixel pops)."""
-    rg, _ = pipeline_out
+    reference's local_growing drains the queue until every pixel pops).
+    Run on the seeded pair's tiny crop with its DeepMatching-position
+    seeds."""
+    from faldoi_tpu.synthetic import make_pair
+
+    pair = make_pair(0, (SL[0].start, SL[1].start, 48, 64))
+    a, b = prepare_pair(pair.i0, pair.i1)
+    prm = P.Parameters()
+    prm.val_method = P.M_TVL1
+    prm.iterations_of = P.LOCAL_ITER
+    prm.epsilon = P.FB_TOL
+    rg, _, _ = match_growing(pair.seeds_fwd, pair.seeds_bwd, a, b, prm,
+                             bsz=256, mode="fused")
     assert np.isfinite(rg).all(), "unfilled pixels in the growing output"
 
 

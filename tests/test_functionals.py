@@ -1,9 +1,9 @@
 """Canvas-solver tests for the functional family (methods 0-8).
 
-Full-growing tests for every method are too compile-heavy for CI on this
-host; we cover each solver at the canvas level on real data (finite,
-plausible energy, GT-flow stability) and reserve whole-pipeline parity for
-the golden scripts.
+Full-growing tests for every method are too compile-heavy for the CPU
+tier; we cover each solver at the canvas level on the seeded pair (finite,
+plausible energy, known-flow stability) and reserve whole-pipeline parity
+for the golden scripts.
 """
 
 import numpy as np
@@ -11,25 +11,21 @@ import pytest
 
 import jax.numpy as jnp
 
-from faldoi_tpu.io import read_flo
-from faldoi_tpu.io.image import read_image_split
 from faldoi_tpu.core.preprocess import prepare_pair, prepare_quad
 from faldoi_tpu.core.functionals import SOLVERS, make_solver_consts
 from faldoi_tpu.core.patch_solver import pad_for_crops
 from faldoi_tpu.ops.stencils import centered_gradient
 from faldoi_tpu import params as P
+from tests import seeded
 
-BASE = "/root/reference/example_data/clean/easy/"
+CROP = (150, 300, 48, 64)
 WR = 5
 CANVAS = 2 * WR + 1
 
 
 @pytest.fixture(scope="module")
 def scene():
-    sl = np.s_[150:198, 300:364]
-    i0 = read_image_split(BASE + "frame_0002.png")[:, sl[0], sl[1]]
-    i1 = read_image_split(BASE + "frame_0003.png")[:, sl[0], sl[1]]
-    gt = read_flo(BASE + "gt/frame_0002.flo")[sl[0], sl[1]]
+    i0, i1, gt = seeded.pair(CROP)
     a, b = prepare_pair(i0, i1)
     i1x, i1y = centered_gradient(b)
     return i0, i1, gt, a, b, i1x, i1y
@@ -64,10 +60,7 @@ def test_canvas_solver_finite_and_stable(scene, method):
 
 
 def test_occ_canvas_solver(scene):
-    sl = np.s_[150:198, 300:364]
-    pl = [read_image_split(BASE + f"frame_000{k}.png")[:, sl[0], sl[1]]
-          for k in (2, 3, 1, 4)]
-    gt = read_flo(BASE + "gt/frame_0002.flo")[sl[0], sl[1]]
+    *pl, gt = seeded.quad(CROP)
     i0n, i1n, i_1n, i2n = prepare_quad(*pl)
     i1x, i1y = centered_gradient(i1n)
     i_1x, i_1y = centered_gradient(i_1n)

@@ -17,11 +17,10 @@ BASE = "/root/reference/example_data/clean/easy/"
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
 
-def _load_crop(sl=np.s_[100:228, 300:492]):
-    i0 = read_image_split(BASE + "frame_0002.png")[:, sl[0], sl[1]]
-    i1 = read_image_split(BASE + "frame_0003.png")[:, sl[0], sl[1]]
-    gt = read_flo(BASE + "gt/frame_0002.flo")[sl[0], sl[1]]
-    return i0, i1, gt
+def _load_crop(crop=(100, 300, 128, 192)):
+    from tests import seeded
+
+    return seeded.pair(crop)
 
 
 def test_global_tvl1_refines_noisy_gt():

@@ -7,19 +7,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from faldoi_tpu.io import read_flo
-from faldoi_tpu.io.image import read_image_split
 from faldoi_tpu.core.preprocess import prepare_pair, prepare_quad
+from tests import seeded
 
-BASE = "/root/reference/example_data/clean/easy/"
-SL = np.s_[100:164, 300:396]
+CROP = (100, 300, 64, 96)
 
 
 @pytest.fixture(scope="module")
 def scene():
-    i0 = read_image_split(BASE + "frame_0002.png")[:, SL[0], SL[1]]
-    i1 = read_image_split(BASE + "frame_0003.png")[:, SL[0], SL[1]]
-    gt = read_flo(BASE + "gt/frame_0002.flo")[SL[0], SL[1]]
+    i0, i1, gt = seeded.pair(CROP)
     a, b = prepare_pair(i0, i1)
     rng = np.random.RandomState(0)
     u1 = jnp.asarray(gt[:, :, 0] + rng.randn(*a.shape).astype(np.float32) * 0.5)
@@ -64,9 +60,7 @@ def test_occ_global_refines_and_binarizes():
     from faldoi_tpu.core.occlusion import tvl2_occ_global
     from faldoi_tpu import params as P
 
-    pl = [read_image_split(BASE + f"frame_000{k}.png")[:, SL[0], SL[1]]
-          for k in (2, 3, 1, 4)]
-    gt = read_flo(BASE + "gt/frame_0002.flo")[SL[0], SL[1]]
+    *pl, gt = seeded.quad(CROP)
     i0n, i1n, i_1n, i2n = prepare_quad(*pl)
     rng = np.random.RandomState(0)
     u1 = jnp.asarray(gt[:, :, 0] + rng.randn(*i0n.shape).astype(np.float32) * 0.3)

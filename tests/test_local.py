@@ -61,17 +61,12 @@ def test_sparse_flow_matches_reference_binary_fixture(tmp_path):
 def test_patch_solver_keeps_good_flow():
     """A patch initialised with the GT flow should keep energy low and not
     drift much after the PD iterations."""
-    from faldoi_tpu.io import read_flo
-    from faldoi_tpu.io.image import read_image_split
     from faldoi_tpu.core.preprocess import prepare_pair
     from faldoi_tpu.core.patch_solver import PatchBatch, solve_patch_batch
     from faldoi_tpu.ops.stencils import centered_gradient
+    from tests import seeded
 
-    base = "/root/reference/example_data/clean/easy/"
-    sl = np.s_[100:164, 300:364]
-    i0 = read_image_split(base + "frame_0002.png")[:, sl[0], sl[1]]
-    i1 = read_image_split(base + "frame_0003.png")[:, sl[0], sl[1]]
-    gt = read_flo(base + "gt/frame_0002.flo")[sl[0], sl[1]]
+    i0, i1, gt = seeded.pair((100, 300, 64, 64))
     a, b = prepare_pair(i0, i1)
     i1x, i1y = centered_gradient(b)
 

@@ -32,3 +32,26 @@ def test_list_images_dataset(tmp_path):
     assert len(pairs) == 2
     assert pairs[0][0].endswith("frame_0001.png")
     assert pairs[1][1].endswith("frame_0003.png")
+
+
+def test_compile_cache_dir(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the cache and no other path
+    is configured; unset, the cache is the checkout's fixed .jax_cache."""
+    import os
+
+    import jax
+
+    from faldoi_tpu import profiling
+
+    checkout = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    before = jax.config.jax_compilation_cache_dir
+    assert profiling.enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    want = os.path.join(checkout, ".jax_cache")
+    try:
+        assert profiling.enable_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

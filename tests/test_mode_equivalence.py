@@ -81,7 +81,7 @@ def test_ordering_dials_enter_jit_key(fixture, monkeypatch):
     """An ordering-dial env knob flipped IN-PROCESS must retrace the sweep
     programs, not silently reuse the cached no-dial compile.
 
-    Caught live (EXPERIMENTS_r03.jsonl fr_em11_warm): FALDOI_GROW_EXACTMIN
+    Caught live: FALDOI_GROW_EXACTMIN
     set after a prior growing had compiled the sweep programs produced
     bit-identical outputs to the cached no-exactmin program — the knob was
     read at trace time without being part of the jit cache key.  The dials

@@ -1,15 +1,15 @@
 """Multi-pair throughput mode (``match_growing_pairs``) and the chunked
 production path's parity smoke.
 
-The pairs mode grows N frame pairs as 2N unrolled lanes per sweep program
-(VERDICT r4 item 3).  Lanes are independent, so with the rung ladder
-pinned to a single rung (no shared adaptation schedule) every pair's
+The pairs mode grows N frame pairs as 2N unrolled lanes per sweep
+program.  Lanes are independent, so with the rung ladder pinned to a
+single rung (no shared adaptation schedule) every pair's
 result must be BIT-IDENTICAL to its own single-pair ``match_growing``
 run — that is the correctness contract these tests gate.
 
 ``test_tiny_chunked_parity`` additionally keeps one CHUNKED-path parity
-smoke in the fast tier (advisor r4: the fused-path tiny parity tests are
-fast-tier, but the chunked dispatch path — the TPU production mode — was
+smoke in the fast tier (the fused-path tiny parity tests are
+fast-tier, but the chunked dispatch path was
 only exercised in the slow tier).
 """
 
@@ -57,7 +57,7 @@ def _prm():
 
 def test_tiny_chunked_parity(monkeypatch):
     """Fast-tier parity smoke through the CHUNKED production path (the
-    dispatch mode bench.py/TPU use), vs the committed reference-binary
+    dispatch mode bench.py uses), vs the committed reference-binary
     goldens on the tiny crop."""
     monkeypatch.setenv("FALDOI_GROW_PREWARM", "0")
     go, ba, a, b = _tiny_inputs()
@@ -108,14 +108,11 @@ def test_pairs_equals_single(monkeypatch):
 
 @pytest.mark.slow
 def test_reference_exact_dials_crop(monkeypatch):
-    """Pin the reference-semantics dial setting (advisor r4: no committed
-    test ran WSCATTER_R=5 / TOPK=exact / WARP_ROWS=32 after the r4 dial
-    defaults deviated), so silent drift of the exact path is caught.
-    Gates: the r3-era baseline at this crop (rg 0.3452 measured under the
-    r4 dials; the exact dials measured tighter)."""
+    """Pin the reference-semantics dial setting (full-patch working-flow
+    scatter with max-energy arbitration), so silent drift of the exact
+    path is caught.  Gates: the r3-era baseline at this crop (rg 0.3452
+    measured under the default dials; the exact dials measured tighter)."""
     monkeypatch.setenv("FALDOI_WSCATTER_R", "5")
-    monkeypatch.setenv("FALDOI_TOPK", "exact")
-    monkeypatch.setenv("FALDOI_WARP_ROWS", "32")
     monkeypatch.setenv("FALDOI_WSCATTER", "exact")
     monkeypatch.setenv("FALDOI_GROW_PREWARM", "0")
     i0 = read_image_split(BASE + "frame_0002.png")[:, 120:312, 300:556]

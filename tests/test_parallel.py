@@ -44,10 +44,8 @@ def test_spatial_sharding_matches_single_device():
     mesh = make_mesh(1, 4)
     # warps=2 locks the dual-carry-across-warps semantics (tvl2OF never
     # re-zeroes xi inside the warp loop).  The warps=2 tolerance is looser:
-    # the unsharded path warps via the MXU window formulation
-    # (bicubic_warp_stack) while shards use the exact gather — different
-    # float32 summation order, amplified by these random-noise images'
-    # O(0.5) gradients (real frames match to ~4e-5, see git history).
+    # float32 differences in the warped planes are amplified through the
+    # second warp by these random-noise images' O(0.5) gradients.
     for u_init, v_init, wrp, atol in ((z, z, 1, 2e-5), (u0, v0, 2, 1e-3)):
         s1, s2 = spatial_tvl2_global(mesh, i0, i1, u_init, v_init,
                                      iters=20, warps=wrp, max_disp=4)

@@ -1,4 +1,4 @@
-"""Crop-scale rg regression gate (VERDICT r3 item 8).
+"""Crop-scale rg regression gate.
 
 ``tests/golden/crop/m0_{rg,var}.flo`` are the rebuilt reference binaries'
 outputs (local_faldoi + global_faldoi, method 0, default params) on the

@@ -40,15 +40,12 @@ import pytest
 
 @pytest.mark.slow
 def test_builtin_sift_e2e_epe_vs_gt():
-    """SIFT-fallback parity evidence (VERDICT r4 weak 7): the built-in
+    """SIFT-fallback parity evidence: the built-in
     matcher is the de-facto L4 on hosts where the vendored sift_cli cannot
     run (libpng12).  Runs the pipeline on the 192x256 clean/easy crop
-    seeded by the built-in matcher (full-scale takes ~40 min on this
-    1-core CPU host; the full-scale numbers are measured and recorded:
-    EPE-vs-GT 0.2276 from 202 built-in seeds vs 0.2272 DeepMatching-seeded
-    — EXPERIMENTS_r05.jsonl `sift_fallback_e2e`; the reference binaries on
-    the same built-in seeds are scored in ROBUSTNESS.jsonl ref_* columns).
-    Crop-scale gate calibrated from the TPU measurement: 0.3561."""
+    seeded by the built-in matcher (full scale measured EPE-vs-GT 0.2276
+    from 202 built-in seeds vs 0.2272 DeepMatching-seeded).  Crop-scale
+    gate calibrated from a full-size measurement: 0.3561."""
     import numpy as np
     import jax.numpy as jnp
 
